@@ -1,6 +1,6 @@
-"""iamr_tpu — a TPU-native adaptive-mesh incompressible Navier-Stokes framework.
+"""iamr_tpu — an adaptive-mesh incompressible Navier-Stokes framework in JAX.
 
-A from-scratch JAX/XLA/Pallas implementation of the capabilities of
+A from-scratch JAX/XLA implementation of the capabilities of
 AMReX-Fluids/IAMR (variable-density projection-method solver): Godunov
 advection, Crank-Nicolson diffusion, MAC + nodal approximate projections with
 a geometric-multigrid engine, multilevel AMR with refluxing and sync
@@ -12,8 +12,8 @@ Design (not a port):
     ``jax.sharding.Mesh``; ghost exchange is XLA halo collectives, not MPI.
   * The timestep is a single jit-compiled functional program; regrids
     recompile out-of-band.
-  * Multigrid smoothers/stencils use fused XLA ops with Pallas kernels for
-    the hot paths.
+  * Multigrid smoothers and stencils are plain jax.numpy/lax, fused by
+    XLA.
 """
 
 __version__ = "0.1.0"

@@ -9,25 +9,31 @@ import sys
 import jax
 
 
-def main(argv):
-    if not argv:
-        print("usage: python -m iamr_tpu <inputs-file> [key=value ...]")
-        return 1
+def run(argv):
+    """Run an inputs file with key=value overrides; returns the driver's
+    final state (an NSState, or the level states of an AMR run)."""
     path, overrides = argv[0], argv[1:]
-    # x64 follows the run dtype (ns.dtype; default f64 on CPU, f32 on TPU).
-    # Enabling x64 in a process also breaks Mosaic lowering of pure-f32
-    # Pallas kernels, so f32 runs must leave it off.
     from iamr_tpu.config.parmparse import ParmParse
     from iamr_tpu.ns.state import config_from_inputs, dim_hint_from_path
+    from iamr_tpu.utils.compile_cache import enable_compile_cache
 
     cfg_probe = config_from_inputs(
         ParmParse.from_file(path, overrides),
         dim_hint=dim_hint_from_path(path),
     )
+    # x64 follows the run dtype (ns.dtype; default f64)
     jax.config.update("jax_enable_x64", cfg_probe.dtype == "float64")
+    enable_compile_cache()
     from iamr_tpu.ns.driver import run_from_inputs
 
-    run_from_inputs(path, overrides, verbose=True)
+    return run_from_inputs(path, overrides, verbose=True)
+
+
+def main(argv):
+    if not argv:
+        print("usage: python -m iamr_tpu <inputs-file> [key=value ...]")
+        return 1
+    run(argv)
     return 0
 
 

@@ -2,7 +2,7 @@
 
 The reference's scaling model is many small boxes per level (amrex
 BoxArray/DistributionMapping, Docs Software.rst:356-401) distributed over
-ranks. The TPU-native equivalent built here (SURVEY.md section 7.1):
+ranks. The JAX equivalent built here (SURVEY.md section 7.1):
 a fine level whose boxes are CONGRUENT (all the same shape — the
 max_grid_size == blocking_factor gridding) executes as ONE batched array
 `[nbox, ...]`:
@@ -252,7 +252,6 @@ class UnionBoxExec:
                 return extrap_vel_to_faces(
                     v, f, dt, dx, self.bshape, _recs, bl, bh,
                     use_forces_in_trans=use_forces_in_trans, scheme=scheme,
-                    fused=False,
                 )
 
             outs = jax.vmap(_one)(vg, fg)

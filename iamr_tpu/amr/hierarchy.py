@@ -1,6 +1,6 @@
 """AMR level hierarchy: patch specs, coarse<->fine transfer operators.
 
-TPU-native replacement for the amrex AmrCore machinery the reference builds
+JAX replacement for the amrex AmrCore machinery the reference builds
 on (SURVEY.md section 2.2): FillPatch coarse->fine interpolation
 (cell_cons_interp semantics), avgDown restriction
 (NavierStokesBase.cpp:4125-4199), and reflux scatter

@@ -1,6 +1,6 @@
 """Two-level (coarse + fine patch) composite timestep.
 
-TPU-native equivalent of the reference's multilevel advance in its
+JAX equivalent of the reference's multilevel advance in its
 non-subcycled mode (amr.subcycling_mode=None, Docs/Debugging.rst:22-23):
 both levels advance with the SAME dt each coarse step; afterwards
   * avgDown replaces covered coarse data with restricted fine data

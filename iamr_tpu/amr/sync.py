@@ -1,6 +1,6 @@
 """Multilevel synchronization: mac_sync + sync projection.
 
-TPU-native equivalent of the reference's post-subcycle sync machinery
+JAX equivalent of the reference's post-subcycle sync machinery
 (SURVEY.md section 3.3):
   * MAC flux-register mismatch (MacProj mac_reg CrseInit/FineAdd,
     MacProj.cpp:304-348): the time-averaged fine interface MAC velocity
@@ -378,7 +378,7 @@ def sync_register_rhs(cfg: NSConfig, spec: LevelSpec, vel_c, vel_f_avg, dt_c):
     projected velocity field at the coarsened fine-boundary nodes: the
     coarse side contributes its (per-level div-free) field's half-stencil,
     the fine side the restriction of the time-averaged subcycled fine
-    field. TPU-native design: with both levels' dense arrays resident we
+    field. Design: with both levels' dense arrays resident we
     evaluate that composite divergence DIRECTLY — blend the coarse new
     velocity with the restricted time-averaged fine velocity, take the
     nodal divergence, and mask to the interface nodes (away from them the

@@ -1,6 +1,6 @@
 """Error tagging and regridding.
 
-TPU-native equivalent of the reference's refinement machinery
+JAX equivalent of the reference's refinement machinery
 (Source/NS_error.cpp:10-145): runtime-configurable refinement indicators
 from `amr.refinement_indicators` supporting value_greater / value_less /
 vorticity_greater / adjacent_difference_greater, each tied to a field
@@ -355,9 +355,9 @@ def coalesce_specs(specs):
     """Merge boxes whose union is a rectangle into one box (greedy, to a
     fixpoint).
 
-    This is the level-wide-solve answer on TPU: the reference splits levels
-    into max_grid_size boxes for MPI distribution and then runs MLMG
-    level-wide across the BoxArray (SURVEY.md section 2.3.1); dense TPU
+    This is the level-wide-solve answer for dense arrays: the reference
+    splits levels into max_grid_size boxes for MPI distribution and then runs MLMG
+    level-wide across the BoxArray (SURVEY.md section 2.3.1); dense device
     arrays want the OPPOSITE — one big box wherever the union allows it, so
     every elliptic solve on the merged patch IS level-wide (no fine-fine
     Dirichlet seams). Only genuinely non-rectangular unions keep multiple

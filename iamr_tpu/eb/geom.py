@@ -1,9 +1,9 @@
 """Embedded-boundary (cut-cell) geometry.
 
-TPU-native equivalent of the AMReX EB2 geometry engine as used by IAMR
+JAX equivalent of the AMReX EB2 geometry engine as used by IAMR
 (reference Source/NS_init_eb2.cpp:70-400; EB2::Build with implicit functions
 sphere/cylinder/box/plane + union/intersection/difference). Geometry is
-evaluated ONCE on the host at init into dense fraction arrays (the TPU
+evaluated ONCE on the host at init into dense fraction arrays (the JAX
 analogue of EBFArrayBoxFactory's volfrac/areafrac/flags); everything inside
 the jitted step consumes those static arrays.
 
@@ -430,7 +430,7 @@ def eb_from_inputs(pp, geom: Geometry, dtype="float64", ss: int = 8):
 def psi_from_inputs(pp, dim: int):
     """The fluid-positive implicit function of the eb2.* namespace (shared
     across AMR levels: each level evaluates the SAME psi on its own grid,
-    the TPU analogue of EB2::Build per level)."""
+    the JAX analogue of EB2::Build per level)."""
     eb2 = pp.scoped("eb2")
     gt = eb2.query("geom_type")
     if gt is None or str(gt) == "all_regular":

@@ -1,6 +1,6 @@
 """EB divergences and flux redistribution.
 
-TPU-native equivalent of the AMReX-Hydro EB advection pieces IAMR calls
+JAX equivalent of the AMReX-Hydro EB advection pieces IAMR calls
 (reference NavierStokesBase.cpp:4768-5001: HydroUtils::EB_ComputeDivergence
 + ApplyRedistribution with redistribution_type "FluxRedist"). Cut cells get
 the hybrid divergence of Colella et al.:

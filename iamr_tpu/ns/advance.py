@@ -1,6 +1,6 @@
 """The Navier-Stokes timestep (single level).
 
-TPU-native re-implementation of NavierStokes::advance (reference
+JAX re-implementation of NavierStokes::advance (reference
 Source/NavierStokes.cpp:542-691; algorithm: Docs TimeStep.rst "Time Step --
 Godunov"; Almgren-Bell-Colella-Howell-Welcome JCP 142, 1998):
 
@@ -182,9 +182,8 @@ def est_time_step(cfg: NSConfig, state: NSState, hit=None):
     fallback = jnp.asarray(1e20, dtype=cfg.jdtype)
     tf = get_force(cfg, state.rho, state.time, hit)
     # per-field input-fused max-reductions: XLA fuses abs+max into the
-    # producers without materializing a stacked array (A/B on chip:
-    # 4.3 vs 7.9 ms at 256^3, bench_experiments/exp_estdt.py; max is
-    # exactly order-invariant so the results are bitwise identical)
+    # producers without materializing a stacked array (max is exactly
+    # order-invariant, so the results are bitwise identical)
     inv_rho = 1.0 / state.rho
     ax = tuple(range(1, 1 + cfg.dim))
     maxes = jnp.stack([
@@ -452,24 +451,11 @@ def advance(
 
         umac_n = grow_umac_normal_union(umac, periodic)
 
-    # fills for every advected field up front (pure functions of state^n),
-    # so the whole step's advection can run as ONE fused multi-field kernel
-    # on the single-level TPU path (the 3 MAC-velocity blocks load once and
-    # feed all fields, ops/pallas_godunov.godunov_plm_fused_multi)
+    # fills for every advected field up front (pure functions of state^n)
     mom_diff = cfg.do_mom_diff
     rho_g = bcp.fill_scal(rho, 3, 0)
     trac_gs = [bcp.fill_scal(trac[t], 3, 1 + t) for t in range(cfg.ntrac)]
     t_g = bcp.fill_temp(state.temp, 3) if cfg.do_temp else None
-    # field order: vel x dim, rho, tracers, temp
-    _fields = []
-    for c in range(dim):
-        sgc = vel_g[c] if not mom_diff else rho_g * vel_g[c]
-        _fields.append((sgc, bool(mom_diff), force_g[c]))
-    _fields.append((rho_g, True, None))
-    for t in range(cfg.ntrac):
-        _fields.append((trac_gs[t], bool(cfg.do_cons_trac), None))
-    if cfg.do_temp:
-        _fields.append((t_g, False, None))
 
     if eb is not None and cfg.use_forces_in_trans:
         # match the reference abort (NavierStokesBase.cpp:566-567)
@@ -477,35 +463,9 @@ def advance(
             "use_forces_in_trans not implemented within EB Godunov. "
             "Set godunov.use_forces_in_trans=0."
         )
-    adv_pre = None
-    if (not adv_batched and boxes is None and eb is None and rz is None
-            and not cfg.use_forces_in_trans):
-        from iamr_tpu.ops.pallas_godunov import (
-            godunov_multi_ok,
-            godunov_plm_fused_multi,
-        )
 
-        if godunov_multi_ok(
-            tuple(cfg.geom.ncell), _fields[0][0].dtype, scheme, rz, eb,
-            len(_fields),
-        ):
-            flist, rows, k = [], [], 0
-            for (_, _, f) in _fields:
-                rows.append(k if f is not None else -1)
-                if f is not None:
-                    flist.append(f)
-                    k += 1
-            adv_pre = godunov_plm_fused_multi(
-                [f[0] for f in _fields], umac, umac_g, dt, dx,
-                cfg.geom.ncell, [f[1] for f in _fields], flist, rows,
-                [not f[1] for f in _fields], periodic=periodic,
-            )
-
-    def _adv(i, s_g_, icons, s_cc_=None, fg_=None):
-        """Advect field i of _fields (falls back per-field when the fused
-        multi pass is ineligible: box-batched, EB, RZ, BDS/PPM, 2D, CPU)."""
-        if adv_pre is not None:
-            return adv_pre[i]
+    def _adv(s_g_, icons, s_cc_=None, fg_=None):
+        """Advect one field (edge states, fluxes, aofs)."""
         if adv_batched:
             return boxes.advect_batched(
                 s_g_, umac, umac_g, umac_n, dt, dx, icons, s_cc=s_cc_,
@@ -525,10 +485,10 @@ def advance(
     aofs_vel = []
     flux_vel = []
     for c in range(dim):
-        sg = _fields[c][0]
-        fg = force_g[c]
+        sg = vel_g[c] if not mom_diff else rho_g * vel_g[c]
         fl, a = _adv(
-            c, sg, mom_diff, s_cc_=vel[c] if not mom_diff else None, fg_=fg,
+            sg, mom_diff, s_cc_=vel[c] if not mom_diff else None,
+            fg_=force_g[c],
         )
         if eb is not None:
             a = eb_aofs(
@@ -542,7 +502,7 @@ def advance(
 
     # --- 4. scalar advection + updates ----------------------------------
     # density: conservative, no forcing
-    flux_rho, aofs_rho = _adv(dim, rho_g, True)
+    flux_rho, aofs_rho = _adv(rho_g, True)
     if eb is not None:
         aofs_rho = eb_aofs(
             flux_rho, umac, eb, dx, True, s_cc=rho, periodic=periodic,
@@ -563,7 +523,7 @@ def advance(
         s = trac[t]
         s_g = trac_gs[t]
         icons = cfg.do_cons_trac
-        flux_s, aofs_s = _adv(dim + 1 + t, s_g, icons, s_cc_=s)
+        flux_s, aofs_s = _adv(s_g, icons, s_cc_=s)
         if eb is not None:
             aofs_s = eb_aofs(
                 flux_s, umac, eb, dx, icons, s_cc=s, periodic=periodic,
@@ -624,8 +584,7 @@ def advance(
     # --- 4b. temperature: advect (convective) + CN conduction -------------
     temp_new = state.temp
     if cfg.do_temp:
-        flux_t, aofs_t = _adv(dim + 1 + cfg.ntrac, t_g, False,
-                              s_cc_=state.temp)
+        flux_t, aofs_t = _adv(t_g, False, s_cc_=state.temp)
         if eb is not None:
             aofs_t = eb_aofs(
                 flux_t, umac, eb, dx, False, s_cc=state.temp,
@@ -694,10 +653,8 @@ def advance(
             )
         elif eb is None and spectral:
             # all-periodic constant-mu: batch the 3 component Helmholtz
-            # solves into ONE vmapped spectral solve (batched rfftn is
-            # ~1.5x cheaper than 3 separate transforms on TPU; a fused
-            # GS-sweep alternative measured NO faster — the smoother is
-            # VMEM-load bound at 256^3, bench_experiments round 3)
+            # solves into ONE vmapped spectral solve (one batched rfftn
+            # instead of 3 separate transforms)
             vbc, vbv = bcp.vel_diff_bc(0)
             sp_args = (invariant_mean(alpha), cfg.vel_visc_coef)
 

@@ -8,9 +8,9 @@ and amplitudes from a k^-2 (spectrum_type=2) shell spectrum; the
 divergence-free variant takes the curl of a vector potential
 A_c = FA_c * prod_d sin(2 pi k_d x_d / L_d + phi_{c,d}).
 
-TPU-native evaluation: every mode term is separable, so the per-cell sum
+Evaluation: every mode term is separable, so the per-cell sum
 over modes becomes einsum contractions over the mode axis of per-dimension
-1D trig tables — MXU matmul work instead of the reference's per-cell mode
+1D trig tables — matmul work instead of the reference's per-cell mode
 loops (which it had to subsample via ff_factor).
 
 Mode phases use jax PRNG (turb.seed) rather than the reference's fixed
@@ -24,6 +24,7 @@ from typing import Tuple
 
 import numpy as np
 import jax.numpy as jnp
+from jax import lax
 
 from iamr_tpu.core.geometry import Geometry
 
@@ -139,8 +140,8 @@ class HITForcing:
             # dA_c/dd = amp_c * (2 pi k_d/L_d) cos in dim d, sin others.
             # Each curl component is dA(c1,d1) - dA(c2,d2): evaluate BOTH
             # terms in ONE einsum by concatenating their mode tables along
-            # the mode axis (halves the 256^3 reconstruction passes vs six
-            # separate einsums — measured 7.2 ms/eval at 256^3).
+            # the mode axis (halves the reconstruction passes vs six
+            # separate einsums).
             def dA_parts(c, d, sign):
                 coef = (
                     sign
@@ -160,7 +161,8 @@ class HITForcing:
                     jnp.concatenate([ta[e], tb[e]], axis=0) for e in range(3)
                 ]
                 return jnp.einsum(
-                    "m,mi,mj,mk->ijk", coef, tabs[0], tabs[1], tabs[2]
+                    "m,mi,mj,mk->ijk", coef, tabs[0], tabs[1], tabs[2],
+                    precision=lax.Precision.HIGHEST,
                 )
 
             fx = curl_comp(dA_parts(2, 1, 1.0), dA_parts(1, 2, -1.0))
@@ -174,7 +176,8 @@ class HITForcing:
                     trig_table(-1, e, "c" if e == c else "s") for e in range(3)
                 ]
                 return jnp.einsum(
-                    "m,mi,mj,mk->ijk", coef, tabs[0], tabs[1], tabs[2]
+                    "m,mi,mj,mk->ijk", coef, tabs[0], tabs[1], tabs[2],
+                    precision=lax.Precision.HIGHEST,
                 )
 
             fx, fy, fz = comp(0), comp(1), comp(2)

@@ -1,6 +1,6 @@
 """LES subgrid closures: Smagorinsky and Sigma eddy viscosity.
 
-TPU-native equivalent of reference Source/NS_LES.cpp:114-240 (params
+JAX equivalent of reference Source/NS_LES.cpp:114-240 (params
 ns.do_LES / ns.LES_model / ns.smago_Cs_cst=0.18 / ns.sigma_Cs_cst=1.5,
 NavierStokesBase.cpp:142-146,481-485). The eddy viscosity is added to the
 molecular face viscosity in the CN solves and explicit viscous terms
@@ -16,6 +16,7 @@ with sigma_i the singular values of grad(u).
 from __future__ import annotations
 
 import jax.numpy as jnp
+from jax import lax
 
 from iamr_tpu.ops.stencil import avg2, sl
 
@@ -60,7 +61,8 @@ def mut_sigma(cfg, bcp, vel, cs: float):
         axis=-2,
     )
     # singular values via eigvals of g^T g (symmetric PSD, 3x3)
-    gtg = jnp.einsum("...ki,...kj->...ij", g, g)
+    gtg = jnp.einsum("...ki,...kj->...ij", g, g,
+                     precision=lax.Precision.HIGHEST)
     ev = jnp.linalg.eigvalsh(gtg)  # ascending
     ev = jnp.maximum(ev, 0.0)
     s1 = jnp.sqrt(ev[..., 2])

@@ -1,6 +1,6 @@
 """Passive tracer particles.
 
-TPU-native equivalent of the reference's AmrTracerParticleContainer use
+JAX equivalent of the reference's AmrTracerParticleContainer use
 (NavierStokesBase.cpp:3754-4055): `AdvectWithUmac` (RK2 midpoint advection
 with MAC-velocity interpolation, called from advance NavierStokes.cpp:672-677),
 `Redistribute` (periodic wrapping / domain clamp), `Timestamp` output, ascii
@@ -80,10 +80,9 @@ def _interp_mac(umac, pos, geom: Geometry):
 def _multilinear(a, fidx: Sequence, geom: Geometry, face_dim: int):
     """One flat gather of all 2^dim corners per particle.
 
-    TPU XLA lowers multi-dim fancy indexing and row gathers poorly
-    (measured 9.5 ms and 65 ns/row at 256^3/65k particles); a single
-    jnp.take of (N * 2^dim) precomputed linear indices into the flattened
-    array runs at ~12 ns/element — the fastest known form on v5e."""
+    A single jnp.take of (N * 2^dim) precomputed linear indices into the
+    flattened array, in place of multi-dim fancy indexing or row gathers
+    (its speed on the H100 is not measured)."""
     dim = a.ndim
     n = geom.ncell
     base = []

@@ -12,7 +12,6 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -263,21 +262,10 @@ def config_from_inputs(pp: ParmParse, dim_hint: Optional[int] = None) -> NSConfi
         "hit" if (probtype == 100 or turb.contains("nmodes")) else "default"
     )
 
-    # ns.dtype: float32|float64 (or 32|64). Default f64 on CPU (reference
-    # semantics), f32 on TPU — emulated f64 there is so slow that even a
-    # 32^3 program takes tens of minutes to COMPILE; production TPU runs
-    # are f32 with f64-critical pieces handled by mixed-precision MG.
+    # ns.dtype: float32|float64 (or 32|64). Default f64 on every platform
+    # (the reference's semantics).
     dt_raw = str(ns.query("dtype", "")).strip()
-    if dt_raw in ("32", "float32", "single"):
-        dtype = "float32"
-    elif dt_raw in ("64", "float64", "double"):
-        dtype = "float64"
-    else:
-        try:
-            on_cpu = jax.default_backend() == "cpu"
-        except Exception:
-            on_cpu = True
-        dtype = "float64" if on_cpu else "float32"
+    dtype = "float32" if dt_raw in ("32", "float32", "single") else "float64"
 
     return NSConfig(
         geom=geom,

@@ -1,6 +1,6 @@
 """BDS (Bell-Dawson-Shubin) advection edge states.
 
-TPU-native equivalent of AMReX-Hydro/BDS (selected via
+JAX equivalent of AMReX-Hydro/BDS (selected via
 ns.advection_scheme=BDS, reference NavierStokesBase.cpp:548-554; regtests
 Exec/run2d/regtest.2d.traceradvect_bds, run3d/regtest.3d.traceradvect_bds;
 algorithm: Bell-Dawson-Shubin 1988; unsplit 3D form: Nonaka et al.).

@@ -3,12 +3,11 @@ high-precision stencil residuals built on it.
 
 Why this exists: the mixed-precision multigrid path (f32 V-cycles + f64
 outer residual/correction — iterative refinement to reference tolerances,
-see ops/mg.py:mg_solve / ops/mg_nodal.py:nodal_solve) spends nearly all its
-wall time in the f64 residual on TPU: XLA:TPU f64 is software-emulated AND
-the 27-point FEM apply lowers to dozens of separate emulated passes (one
-f64 apply at 257^3 measured ~0.25 s). A residual computed in *compensated
-f32* arithmetic — Dekker/Knuth error-free transformations, fused by XLA
-into one f32 elementwise loop — reaches ~1e-13 relative accuracy (vs the
+see ops/mg.py:mg_solve / ops/mg_nodal.py:nodal_solve) needs an f64-grade
+residual, and on hardware whose f64 rate is low that residual dominates
+the solve. A residual computed in *compensated f32* arithmetic —
+Dekker/Knuth error-free transformations, fused by XLA into one f32
+elementwise loop — reaches ~1e-13 relative accuracy (vs the
 ~4e-4 cancellation floor of a plain f32 apply) at f32 speed, which is what
 the rtol<=1e-11 reference tolerances need (Source/Projection.cpp:18-20,
 Source/MacProj.cpp:49-51).
@@ -30,8 +29,7 @@ to tolerance (and all reported residuals) with the true f64 residual
 
 All functions take/return f32 arrays and run in non-x64 processes; the
 residual entry points take f64 and split/recombine at the edges (x64
-processes only, where Mosaic is gated off anyway — these are pure-XLA
-fusions, no Pallas).
+processes only). All are plain XLA fusions.
 
 References (public algorithms): Dekker 1971 (splitting / exact products),
 Knuth TAOCP v2 (TwoSum), Hida-Li-Bailey double-double arithmetic.

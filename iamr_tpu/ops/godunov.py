@@ -1,6 +1,6 @@
 """Godunov PLM advection: MAC velocity prediction and scalar edge states.
 
-TPU-native equivalent of AMReX-Hydro's Godunov kernels (reference call sites:
+JAX equivalent of AMReX-Hydro's Godunov kernels (reference call sites:
 Source/NavierStokesBase.cpp:4477-4491 ExtrapVelToFaces,
 NavierStokesBase.cpp:4701-4820 ComputeFluxesOnBoxFromState/ComputeDivergence/
 ComputeConvectiveTerm). Implements the corner-transport-upwind scheme of
@@ -16,7 +16,7 @@ monotonicity-limited slopes:
 All arrays are dense level arrays; inputs arrive pre-grown with filled ghost
 cells (nghost_state = 3, reference NavierStokesBase.cpp:4539-4547;
 nghost_force = 1). Every step is a fused elementwise stencil over the whole
-level — ideal VPU work; no per-box loops.
+level; no per-box loops.
 
 Conventions: cell quantities grown by ng ghosts have shape n+2ng; face-d
 arrays on the real domain have shape n_d+1 in dim d and n_e in dims e != d.
@@ -212,7 +212,6 @@ def extrap_vel_to_faces(
     bcvals_hi,
     use_forces_in_trans: bool = False,
     scheme: str = "plm",
-    fused: bool = True,
 ):
     """Predict time-centered normal velocities on faces (the MAC velocities).
 
@@ -220,8 +219,6 @@ def extrap_vel_to_faces(
     force_g: (dim, n+2, ...) force (tf + visc - gradp)/rho with 1 ghost
     bcrecs[c]: BCRec for velocity component c; bcvals_lo/hi[(d)][c]: ext_dir
     values used to pin faces on inflow/no-slip boundaries.
-    fused: allow dispatch to the Pallas kernel (callers running under vmap —
-    the box-batched AMR levels — pass False and take the XLA path).
 
     Returns tuple of face arrays u_mac[d] with shape n_d+1 in dim d.
     """
@@ -232,20 +229,7 @@ def extrap_vel_to_faces(
     # use_forces_in_trans=true moves the 0.5*dt*f term from the final face
     # states into the normal-predictor (hat) states feeding the transverse
     # terms (AMReX-Hydro Godunov semantics; IAMR plumbs it at
-    # NavierStokesBase.cpp:556-557,4491). The fused kernel implements only
-    # the default-false form, so it is gated out when set.
-    if fused and dim == 3 and scheme == "plm" and not use_forces_in_trans:
-        from iamr_tpu.ops.pallas_godunov import (
-            extrap_plm_fused,
-            godunov_fused_ok,
-        )
-
-        if godunov_fused_ok(n, vel_g.dtype, scheme, None, None):
-            umac = extrap_plm_fused(vel_g, force_g, dt, dx, n)
-            return tuple(
-                _pin_faces(umac[d], d, bcrecs[d], bcvals_lo, bcvals_hi)
-                for d in range(dim)
-            )
+    # NavierStokesBase.cpp:556-557,4491).
 
     # limited slopes of every component in every dim, on the ng=1 region
     # slope4 output has ghost extent ng-2 = 1 in its own dim; trim others to 1
@@ -451,28 +435,13 @@ def advect_field(
     umac_gn=None,
     use_forces_in_trans: bool = False,
 ):
-    """Edge states + fluxes + advective tendency for one field.
-
-    Dispatches to the fused Pallas PLM kernel (ops/pallas_godunov.py) on
-    TPU for the common configuration, else composes compute_edge_states +
-    compute_fluxes_and_aofs. Returns (fluxes, aofs).
+    """Edge states + fluxes + advective tendency for one field: composes
+    compute_edge_states + compute_fluxes_and_aofs. Returns (fluxes, aofs).
 
     umac_gn: optional MAC velocities ALSO grown by one face in their own
     (normal) dim — a box of a box-batched level passes these so the
     conservative d(umac)/dx ghost terms use the true neighbor faces
     (sibling/coarse data) instead of the single-level wrap/edge-copy."""
-    from iamr_tpu.ops.pallas_godunov import (
-        godunov_fused_ok,
-        godunov_plm_fused,
-    )
-
-    if umac_gn is None and not use_forces_in_trans and godunov_fused_ok(
-        tuple(ncell), s_g.dtype, scheme, rz, eb
-    ):
-        return godunov_plm_fused(
-            s_g, umac, umac_g, dt, dx, ncell, iconserv,
-            force_g=force_g, periodic=periodic,
-        )
     fluid_g = None
     if eb is not None and scheme != "ppm":
         # near-wall least-squares slopes need the grown fluid mask; domain

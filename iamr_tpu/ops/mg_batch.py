@@ -2,7 +2,7 @@
 
 Solves a * alpha * phi - b * div(beta grad phi) = rhs over a congruent
 box batch `[nbox, bs, ...]` — an AMR level stored as its boxes, never as
-the union bounding box. This is the TPU-native analogue of AMReX MLMG
+the union bounding box. This is the JAX analogue of AMReX MLMG
 solving one level across its whole BoxArray (SURVEY.md section 2.2;
 reference call sites MacProj.cpp / Diffusion.cpp): each MG depth keeps
 the batch layout (boxes coarsen congruently), smoothing is a vmapped

@@ -58,7 +58,7 @@ def cell_to_face(a, d: int, bc_wrap: bool = False):
 
 
 def checkerboard(shape, parity: int, dtype):
-    """Mask of cells with (i+j+k) % 2 == parity (>=2D iota per TPU rules)."""
+    """Mask of cells with (i+j+k) % 2 == parity (built from >=2D iotas)."""
     import jax
 
     total = None

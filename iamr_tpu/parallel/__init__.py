@@ -4,7 +4,7 @@ replacement; SURVEY.md sections 2.3 and 5.8).
 Design: shard dense level arrays over a spatial `jax.sharding.Mesh`
 (`SpatialMesh`), activate the mesh with `use_mesh` around jit tracing, and
 the solver internals annotate per-MG-level layouts via `constrain` — fine
-levels stay sharded (halo exchanges ride ICI as collective-permutes),
+levels stay sharded (halo exchanges are collective-permutes),
 coarse levels replicate (the agglomeration analogue). Global reductions
 (dt CFL min, residual norms, conservation sums — reference
 NavierStokesBase.cpp:1452) are plain jnp reductions that XLA lowers to

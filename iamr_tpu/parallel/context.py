@@ -6,12 +6,12 @@ trace time), solver internals call `constrain(x)` at layout-critical points
 — most importantly per multigrid level — and XLA's SPMD partitioner
 propagates the rest.
 
-The coarse-multigrid policy lives here (the TPU analogue of AMReX MLMG
+The coarse-multigrid policy lives here (the JAX analogue of AMReX MLMG
 agglomeration/consolidation, reference Source/Diffusion.cpp:319-336 and
 SURVEY.md section 5.7): a spatial dim stays sharded while every device
 keeps at least MIN_LOCAL cells of it and the extent divides the mesh axis;
 below that the level is replicated, so coarse V-cycle levels run redundantly
-on every chip instead of ping-ponging tiny halos across ICI. Fine levels
+on every device instead of ping-ponging tiny halos between devices. Fine levels
 carry the work; replicating <= (2*MIN_LOCAL)^dim cells is cheaper than the
 latency-bound alternative.
 """

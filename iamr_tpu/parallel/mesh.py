@@ -3,10 +3,10 @@
 The framework's primary parallel axis is spatial domain decomposition
 (SURVEY.md section 2.3.1; the reference distributes its BoxArray over MPI
 ranks via DistributionMapping and communicates through ParallelDescriptor /
-FillBoundary, Source/NavierStokesBase.cpp:1452). The TPU-native equivalent:
+FillBoundary, Source/NavierStokesBase.cpp:1452). The JAX equivalent:
 shard each dense level array over a `jax.sharding.Mesh` whose axes are the
 spatial dimensions, annotate programs with `with_sharding_constraint`, and
-let XLA compile the ghost fills / stencils / multigrid transfers into ICI
+let XLA compile the ghost fills / stencils / multigrid transfers into
 collectives (collective-permute halo exchanges, all-reduce reductions).
 
 Centering conventions: cell arrays are (nx, ny[, nz]); face/node arrays are

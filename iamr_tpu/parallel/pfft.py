@@ -4,7 +4,7 @@ The exact spectral solvers (solvers/spectral.py) replace multigrid on
 all-periodic constant-coefficient problems; under spatial domain
 decomposition a naive jnp.fft.fftn of an (x,y)-sharded array would make
 GSPMD all-gather the whole level onto every chip. This module keeps the
-transform distributed the classic pencil way (the TPU analogue of the
+transform distributed the classic pencil way (the JAX analogue of the
 slab/pencil MPI FFTs the reference ecosystem uses for its HIT forcing
 spectra, Tutorials/HIT/NS_getForce.cpp): inside one shard_map,
 
@@ -16,8 +16,9 @@ spectra, Tutorials/HIT/NS_getForce.cpp): inside one shard_map,
   * apply the (locally assembled) operator symbol in k-space;
   * replay the rotations in reverse for the inverse transform.
 
-Every collective is an ICI all-to-all inside jit; no array is ever
-replicated. Symbols are assembled per shard from 1D factor vectors sliced
+Every collective is an all-to-all inside jit (NVLink joins every card
+to every other, so no mesh axis is cheaper than another); no array is
+ever replicated. Symbols are assembled per shard from 1D factor vectors sliced
 at the shard's k-offset (`lax.axis_index`), so the k-space layout never
 materializes globally either.
 

@@ -4,7 +4,7 @@ The reference extends problems by overriding source files in a problem dir
 ahead of Source/ in the VPATH (SURVEY.md section 2.2b; e.g. Tutorials/HIT
 overrides prob_init.cpp and NS_getForce.cpp, GNUmakefile:53-55). The six
 extension points are: initial conditions, body forcing, BC fill functions,
-derived fields, error-tagging indicators, and EB geometry. The TPU-native
+derived fields, error-tagging indicators, and EB geometry. The JAX
 equivalent is a code-level registry: import iamr_tpu.plugins and register
 plain functions before building the config/state; everything downstream
 (driver, tagging, IO) picks them up by probtype / name.

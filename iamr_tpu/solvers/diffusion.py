@@ -1,6 +1,6 @@
 """Crank-Nicolson diffusion solves (the Diffusion engine).
 
-TPU-native equivalent of reference Source/Diffusion.cpp:
+JAX equivalent of reference Source/Diffusion.cpp:
   * diffuse_scalar (Diffusion.cpp:207-600): semi-implicit CN update
         (alpha/dt - theta div beta grad) S^{n+1}
             = alpha/dt S* + (1-theta) div beta grad S^n

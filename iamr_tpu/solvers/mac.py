@@ -1,7 +1,7 @@
 """MAC projection: make the face (MAC) velocities satisfy the divergence
 constraint before advection.
 
-TPU-native equivalent of reference Source/MacProj.cpp:225-352 (mac_project)
+JAX equivalent of reference Source/MacProj.cpp:225-352 (mac_project)
 + the Hydro::MacProjector wrapper (MacProj.cpp:1084-1184). Solves
 
     div( (1/rho)_faces grad phi ) = div(u_mac) - S

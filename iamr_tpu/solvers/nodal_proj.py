@@ -1,6 +1,6 @@
 """Nodal approximate projection (the Projection engine, single level).
 
-TPU-native equivalent of reference Source/Projection.cpp level_project
+JAX equivalent of reference Source/Projection.cpp level_project
 (Projection.cpp:166-449, proj_2 form) + initialVelocityProject (615-840),
 over the FEM nodal multigrid (iamr_tpu.ops.mg_nodal), replacing
 MLNodeLaplacian + Hydro::NodalProjector (Projection.cpp:2385-2567).

@@ -5,7 +5,7 @@ all-periodic run with uniform density and constant viscosity are
 constant-coefficient operators: their discrete stencils (7-point cell
 ABecLaplacian, 27-point FEM nodal Laplacian) are convolutions, so one
 rfftn + symbol divide + irfftn solves them EXACTLY (to roundoff) — the
-TPU-native analogue of AMReX's FFT Poisson path (amrex/Src/FFT), replacing
+analogue of AMReX's FFT Poisson path (amrex/Src/FFT), replacing
 4+ multigrid V-cycles per solve with two transforms and a better answer.
 MLMG (ops.mg / ops.mg_nodal) remains the general path for every other BC /
 coefficient configuration; eligibility is decided host-side before jit
@@ -27,7 +27,6 @@ from __future__ import annotations
 
 from typing import Sequence
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -162,15 +161,6 @@ def spectral_eligible(cfg, rho0_array=None) -> bool:
     mode = getattr(cfg, "fft_solve", -1)
     if mode == 0:
         return False
-    if jnp.dtype(cfg.jdtype) == jnp.float64:
-        try:
-            on_tpu = jax.default_backend() not in ("cpu",)
-        except Exception:
-            on_tpu = True
-        if on_tpu:
-            # f64 FFT on TPU is emulated so poorly it does not even finish
-            # compiling a 32^3 rfftn in minutes; f64 TPU runs use MG
-            return False
     dim = cfg.dim
     if not all(cfg.dom.is_periodic(d) for d in range(dim)):
         return False

@@ -8,13 +8,13 @@ Round 1 solved the componentwise part implicitly and the cross terms
 explicitly — the wrong implicitness for variable viscosity (LES), VERDICT
 item 3.
 
-TPU-native design: segregated (block Gauss-Seidel over components)
+Design: segregated (block Gauss-Seidel over components)
 iteration. Each outer iteration solves the componentwise scalar system
 
     (alpha - theta dt div mu grad) u_c = rhs_c + theta dt X_c(u^k)
 
 with the transpose (cross) part X_c(u) = sum_j d_j(mu d_c u_j) lagged at
-the previous outer iterate, reusing the fused-Pallas scalar MG. The cross
+the previous outer iterate, reusing the scalar MG. The cross
 block is subdominant (its diagonal contribution is a fraction of the
 componentwise one), so the outer iteration contracts fast; with a
 tolerance-driven outer loop this converges to the SAME solution as a

@@ -1,6 +1,6 @@
 // iamr_tpu native runtime components (C++17).
 //
-// TPU-native replacements for the host-side C++ machinery the reference
+// JAX replacement for the host-side C++ machinery the reference
 // gets from AMReX:
 //   * berger_rigoutsos: tag clustering into efficient box covers
 //     (AMReX Src/AmrCore cluster algorithm used by Amr::regrid; reference

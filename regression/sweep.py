@@ -26,12 +26,13 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import jax  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
+from iamr_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", os.path.join(REPO, ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+enable_compile_cache()
 
 REF = "/root/reference"
 

@@ -1,6 +1,5 @@
-"""nodal_solve_df: the non-x64 df32-resident nodal solve (the form that
-keeps the Mosaic smoothers enabled on TPU — mg_nodal.py:nodal_solve_df)
-must reach f64-grade residuals with no f64 array in the program, verified
+"""nodal_solve_df: the non-x64 df32-resident nodal solve
+(mg_nodal.py:nodal_solve_df) must reach f64-grade residuals with no f64 array in the program, verified
 against host numpy float64 ground truth (ops/np_nodal.py).
 
 Reference contract: the nodal projection MLMG driven to proj_tol

@@ -38,9 +38,9 @@ def test_extrap_noop_with_zero_force():
     vel_g, force_g, dt, dx, n, recs, bl, bh = _setup()
     fz = jnp.zeros_like(force_g)
     a = extrap_vel_to_faces(vel_g, fz, dt, dx, n, recs, bl, bh,
-                            use_forces_in_trans=False, fused=False)
+                            use_forces_in_trans=False)
     b = extrap_vel_to_faces(vel_g, fz, dt, dx, n, recs, bl, bh,
-                            use_forces_in_trans=True, fused=False)
+                            use_forces_in_trans=True)
     for x, y in zip(a, b):
         np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
 
@@ -50,9 +50,9 @@ def test_extrap_difference_is_second_order_in_dt():
     diffs = []
     for dt in (0.01, 0.005):
         a = extrap_vel_to_faces(vel_g, force_g, dt, dx, n, recs, bl, bh,
-                                use_forces_in_trans=False, fused=False)
+                                use_forces_in_trans=False)
         b = extrap_vel_to_faces(vel_g, force_g, dt, dx, n, recs, bl, bh,
-                                use_forces_in_trans=True, fused=False)
+                                use_forces_in_trans=True)
         diffs.append(max(float(jnp.max(jnp.abs(x - y)))
                          for x, y in zip(a, b)))
     assert diffs[0] > 0.0  # the flag actually does something
@@ -95,8 +95,8 @@ def test_edge_states_noop_with_zero_force_and_dt2_difference():
 
 
 def test_advect_field_threads_flag():
-    # the advect_field wrapper must hand the flag down (and skip the fused
-    # kernel): with a force and the flag on, results differ from flag off
+    # the advect_field wrapper must hand the flag down: with a force and
+    # the flag on, results differ from flag off
     vel_g, force_g, dt, dx, n, recs, bl, bh = _setup()
     rng = np.random.RandomState(11)
     s_g = jnp.asarray(rng.rand(*vel_g.shape[1:]))

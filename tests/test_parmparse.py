@@ -1,6 +1,11 @@
+import os
+
 import pytest
 
 from iamr_tpu.config.parmparse import ParmParse
+
+TAYLOR_GREEN = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "examples", "inputs.3d.taylor_green")
 
 SAMPLE = """
 # comment line
@@ -63,19 +68,17 @@ def test_reference_inputs_parse():
 
 
 def test_ns_dtype_wiring():
-    # ns.dtype selects the run precision; default is backend-dependent
-    # (f64 on CPU for reference semantics, f32 on TPU where emulated f64
-    # programs take tens of minutes to compile)
+    # ns.dtype selects the run precision; the default is f64 on every
+    # platform (reference semantics)
     from iamr_tpu.ns.state import config_from_inputs
 
-    base = "/root/repo/examples/inputs.3d.taylor_green"
+    base = TAYLOR_GREEN
     assert config_from_inputs(
         ParmParse.from_file(base, ["ns.dtype=float32"])
     ).dtype == "float32"
     assert config_from_inputs(
         ParmParse.from_file(base, ["ns.dtype=64"])
     ).dtype == "float64"
-    # tests force the cpu backend (conftest), so the default is f64
     assert config_from_inputs(ParmParse.from_file(base)).dtype == "float64"
 
 
@@ -84,7 +87,7 @@ def test_f32_tolerance_floors():
     tolerance-mode solves spin max_vcycles chasing 1e-12 in f32)."""
     from iamr_tpu.ns.state import config_from_inputs
 
-    base = "/root/repo/examples/inputs.3d.taylor_green"
+    base = TAYLOR_GREEN
     c32 = config_from_inputs(ParmParse.from_file(base, ["ns.dtype=float32"]))
     assert c32.proj_tol >= 3e-6 and c32.visc_tol >= 3e-6
     c64 = config_from_inputs(ParmParse.from_file(base, ["ns.dtype=float64"]))

@@ -1,6 +1,6 @@
 """Spectral (FFT) solver fast path: exactness against the SAME discrete
 operators the multigrid solves, and step-level agreement with the MG path
-on an all-periodic uniform-density run (solvers/spectral.py; the TPU-native
+on an all-periodic uniform-density run (solvers/spectral.py; the JAX
 analogue of AMReX's FFT Poisson solvers)."""
 
 import numpy as np
